@@ -1,4 +1,4 @@
-// snail_tpu native tile codec — the rebuild of the reference's quicklz
+// snail native tile codec — the rebuild of the reference's quicklz
 // tile-compression path (reference extern/quicklz + src/compression.cpp:
 // whole-node-buffer compress at node.cpp:342-346, threaded decompress at
 // compression.cpp:155-163). Self-contained LZSS with a 3-byte hash head

@@ -1,0 +1,135 @@
+"""Viewer client: requests frames from the render server over TCP.
+
+Rebuild of the reference's GLFW client (client.cpp:130-396) minus the GL
+window (this image is headless): frames are decompressed, reassembled and
+written as PNGs; the HUD becomes printed stat lines with the same
+min/max/avg FPS + MRays/s accounting (client.cpp:215-252, 374-379).
+
+Run: ``python -m snail.apps.client feline.obj --host HOST --frames 8``
+"""
+
+from __future__ import annotations
+
+import argparse
+import socket
+import time
+
+import numpy as np
+
+from ..net import protocol
+from ..utils.frame_counter import FrameCounter
+from ..utils.image import save_image
+
+
+class StatAccum:
+    """min/max/avg FPS + MRays/s accumulation; 'X' reset key semantics
+    (client.cpp:239-253) -> reset() method."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.frames = 0
+        self.t_sum = 0.0
+        self.fps_min = float("inf")
+        self.fps_max = 0.0
+        self.mrays_sum = 0.0
+
+    def tick(self, dt: float, rays: int):
+        fps = 1.0 / max(dt, 1e-9)
+        self.frames += 1
+        self.t_sum += dt
+        self.fps_min = min(self.fps_min, fps)
+        self.fps_max = max(self.fps_max, fps)
+        self.mrays_sum += rays / max(dt, 1e-9) / 1e6
+
+    def summary(self) -> str:
+        if not self.frames:
+            return "no frames"
+        avg_fps = self.frames / self.t_sum
+        return (f"frames:{self.frames} fps(min/avg/max): "
+                f"{self.fps_min:.2f}/{avg_fps:.2f}/{self.fps_max:.2f} "
+                f"MRays/s(avg): {self.mrays_sum / self.frames:.1f}")
+
+
+def run_client(host: str, port: int, model: str, resx: int, resy: int,
+               frames: int, cam_pos, cam_target, lights,
+               out_prefix: str = "/tmp/snail_frame",
+               stats: bool = False) -> StatAccum:
+    sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+    sock.connect((host, port))
+    protocol.send_json(sock, protocol.LoadModel(model, resx, resy).to_json())
+    ready = protocol.recv_json(sock)
+    print(f"[client] model ready: {ready['num_tris']} tris, "
+          f"build {ready['build_time']:.2f}s", flush=True)
+
+    acc = StatAccum()
+    fc = FrameCounter()
+    orbit = np.asarray(cam_pos, np.float64) - np.asarray(cam_target)
+    for f in range(frames):
+        # orbit the camera (the client's anim loop feel)
+        ang = 2.0 * np.pi * f / max(frames, 1) * 0.1
+        c, s = np.cos(ang), np.sin(ang)
+        pos = np.asarray(cam_target) + np.array([
+            orbit[0] * c + orbit[2] * s, orbit[1],
+            -orbit[0] * s + orbit[2] * c,
+        ])
+        req = protocol.FrameRequest(
+            cam_pos=tuple(map(float, pos)),
+            cam_target=tuple(map(float, cam_target)),
+            lights=lights,
+            gvals={"2": True} if stats else {},
+        )
+        t0 = time.perf_counter()
+        protocol.send_json(sock, req.to_json())
+        parts = list(protocol.recv_parts(sock))
+        st = protocol.recv_json(sock)
+        img = protocol.assemble(parts, resy, resx)
+        dt = time.perf_counter() - t0
+        rays = resx * resy * (1 + len(lights))
+        acc.tick(dt, rays)
+        fc.tick()
+        kb = sum(len(p[6]) for p in parts) / 1024.0
+        hud = ""
+        if st.get("measured"):
+            # measured in-kernel counters (TreeStats::GenInfo HUD string,
+            # reference tree_stats.cpp GenInfo / client.cpp:352)
+            hud = (f" in:{st['intersects'] // 1000}k"
+                   f" it:{st['loop_iters'] // 1000}k")
+        print(f"[client] frame {f}: {dt*1e3:.1f} ms "
+              f"(render {st['render_ms']:.1f} ms, {kb:.0f} KB/frame){hud}",
+              flush=True)
+        if out_prefix:
+            save_image(f"{out_prefix}_{f:03d}.png",
+                       img.astype(np.float32) / 255.0)
+    protocol.send_json(sock, {"type": "finish", "finish": True})
+    sock.close()
+    print("[client]", acc.summary(), flush=True)
+    return acc
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description="snail viewer client")
+    ap.add_argument("model", help="scene file (server resolves rel paths)")
+    ap.add_argument("--host", default="127.0.0.1")  # "blader" default in
+    # the reference (readme_distributed.txt:24-25) -> localhost here
+    ap.add_argument("--port", type=int, default=protocol.DEFAULT_PORT)
+    ap.add_argument("--res", default="512x512")
+    ap.add_argument("--frames", type=int, default=8)
+    ap.add_argument("--cam-pos", default="3,2.5,4")
+    ap.add_argument("--cam-target", default="0,0,0")
+    ap.add_argument("--out", default="/tmp/snail_frame")
+    ap.add_argument("--stats", action="store_true",
+                    help="request measured in-kernel TreeStats (gVals[2])")
+    args = ap.parse_args(argv)
+    resx, resy = map(int, args.res.split("x"))
+    cam_pos = tuple(map(float, args.cam_pos.split(",")))
+    cam_target = tuple(map(float, args.cam_target.split(",")))
+    lights = [{"pos": [5.0, 15.0, 5.0], "color": [1, 1, 1], "radius": 60.0}]
+    run_client(args.host, args.port, args.model, resx, resy, args.frames,
+               cam_pos, cam_target, lights, args.out, stats=args.stats)
+
+
+if __name__ == "__main__":
+    main()

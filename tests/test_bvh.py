@@ -4,9 +4,9 @@
 import numpy as np
 import pytest
 
-from snail_tpu.bvh import build_bvh, save_bvh, load_bvh, build_or_load
-from snail_tpu.bvh.build import MAX_DEPTH
-from snail_tpu.scene import load_wavefront_obj
+from snail.bvh import build_bvh, save_bvh, load_bvh, build_or_load
+from snail.bvh.build import MAX_DEPTH
+from snail.scene import load_wavefront_obj
 
 
 def random_tris(rng, n, spread=10.0, size=0.5):
@@ -87,8 +87,8 @@ def _flat_from_tri(tri):
 @pytest.mark.parametrize("method", ["binned", "sweep"])
 def test_traversal_matches_brute_force(rng, method):
     import jax.numpy as jnp
-    from snail_tpu.ops import intersect_brute_force, traverse_bvh_ref
-    from snail_tpu.core.vecmath import BIG
+    from snail.ops import intersect_brute_force, traverse_bvh_ref
+    from snail.core.vecmath import BIG
 
     tri = random_tris(rng, 300, spread=5.0, size=1.0)
     lo, hi = tri_bounds(tri)
@@ -134,7 +134,7 @@ def test_traversal_matches_brute_force(rng, method):
 
 def test_shadow_matches_brute_force(rng):
     import jax.numpy as jnp
-    from snail_tpu.ops import intersect_any_brute_force, traverse_bvh_shadow_ref
+    from snail.ops import intersect_any_brute_force, traverse_bvh_shadow_ref
 
     tri = random_tris(rng, 200, spread=4.0, size=1.0)
     lo, hi = tri_bounds(tri)
@@ -170,8 +170,8 @@ def test_shadow_matches_brute_force(rng):
 def test_box_scene_traversal(box_scene):
     """End-to-end: rays at the reference box.obj cube."""
     import jax.numpy as jnp
-    from snail_tpu.ops import traverse_bvh_ref
-    from snail_tpu.core.vecmath import BIG
+    from snail.ops import traverse_bvh_ref
+    from snail.core.vecmath import BIG
 
     g = box_scene.flatten()
     lo, hi = g.bounds()
@@ -197,3 +197,21 @@ def test_box_scene_traversal(box_scene):
     hit = dist < BIG / 2
     np.testing.assert_array_equal(hit, inside)
     np.testing.assert_allclose(dist[inside], 4.0, rtol=1e-5)
+
+
+def test_traced_scene_rejects_trees_deeper_than_the_stack(rng):
+    """make_traced_scene refuses a tree whose depth the traversal stack
+    (STACK_CAP entries, shared by traverse_ref and the CUDA kernel) cannot
+    hold, instead of letting the walk clamp its stack silently."""
+    import dataclasses
+
+    from snail.ops.traverse_ref import STACK_CAP
+    from snail.scene.procedural import soup_scene
+    from snail.scene.scene import make_traced_scene
+
+    g = soup_scene(64, seed=2).flatten()
+    lo, hi = g.bounds()
+    bvh = build_bvh(lo, hi, leaf_size=4)
+    make_traced_scene(g, dataclasses.replace(bvh, depth=STACK_CAP - 2))
+    with pytest.raises(ValueError, match="stack"):
+        make_traced_scene(g, dataclasses.replace(bvh, depth=STACK_CAP - 1))

@@ -7,12 +7,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from snail_tpu.bvh import build_bvh
-from snail_tpu.core.vecmath import BIG
-from snail_tpu.diff.vjp import diff_closest_hit
-from snail_tpu.scene.scene import make_traced_scene
-from snail_tpu.scene.base_scene import BaseScene, SceneObject
-from snail_tpu.core.types import Light
+from snail.bvh import build_bvh
+from snail.core.vecmath import BIG
+from snail.diff.vjp import diff_closest_hit
+from snail.scene.scene import make_traced_scene
+from snail.scene.base_scene import BaseScene, SceneObject
+from snail.core.types import Light
 
 
 def _two_tri_scene(offset=0.0):
@@ -111,8 +111,8 @@ def test_image_grads_wrt_light_and_materials():
     material diffuse is positive where it should be."""
     import dataclasses
 
-    from snail_tpu.core.types import Camera, RenderOpts
-    from snail_tpu.render.renderer import render_frame
+    from snail.core.types import Camera, RenderOpts
+    from snail.render.renderer import render_frame
 
     base = _two_tri_scene()
     scene = _traced(base)
@@ -143,8 +143,8 @@ def test_pixel_grads_vs_fd_camera():
     miniature)."""
     import dataclasses
 
-    from snail_tpu.core.types import Camera, RenderOpts
-    from snail_tpu.render.renderer import render_frame
+    from snail.core.types import Camera, RenderOpts
+    from snail.render.renderer import render_frame
 
     base = _two_tri_scene()
     scene = _traced(base)

@@ -4,7 +4,7 @@
 import numpy as np
 import pytest
 
-from snail_tpu.scene.doom3 import (
+from snail.scene.doom3 import (
     load_any,
     load_doom3_proc,
     load_list,
@@ -81,20 +81,20 @@ def test_proc_load(tmp_path):
     assert "textures/base_wall/lfwall1_d.tga" in tex_names
 
 
-def test_list_concat(tmp_path):
+def test_list_concat(tmp_path, scene_dir, box_path):
     p = tmp_path / "both.list"
     p.write_text("box.obj\nbox.obj\n")
-    scene = load_list(str(p), scene_dir="/root/reference/scenes")
-    from snail_tpu.scene.wavefront import load_wavefront_obj
+    scene = load_list(str(p), scene_dir=str(scene_dir))
+    from snail.scene.wavefront import load_wavefront_obj
 
-    single = load_wavefront_obj("/root/reference/scenes/box.obj")
+    single = load_wavefront_obj(box_path)
     assert scene.num_tris == 2 * single.num_tris
 
 
-def test_load_any_dispatch(tmp_path):
+def test_load_any_dispatch(box_path):
     with pytest.raises(ValueError):
         load_any("scene.bin")
-    obj = load_any("/root/reference/scenes/box.obj")
+    obj = load_any(box_path)
     assert obj.num_tris > 0
 
 
@@ -118,7 +118,7 @@ TLS 3 2 3 4
 def test_v3o_load(tmp_path):
     import struct
 
-    from snail_tpu.scene.desperados2 import load_v3o
+    from snail.scene.desperados2 import load_v3o
 
     p = tmp_path / "level.v3o"
     p.write_text(V3O)
@@ -151,7 +151,7 @@ def test_v3o_load(tmp_path):
 def test_v3o_heightfield(tmp_path):
     import struct
 
-    from snail_tpu.scene.desperados2 import load_v3o
+    from snail.scene.desperados2 import load_v3o
 
     # 2x2 heightmap: u16 w, u16 h, 15 pad bytes, u16 samples
     hm = tmp_path / "map.raw"

@@ -6,22 +6,22 @@ import pytest
 
 import jax.numpy as jnp
 
-from snail_tpu.bvh import build_bvh
-from snail_tpu.core.types import Camera, Light
-from snail_tpu.core.vecmath import BIG
-from snail_tpu.scene.instancing import (
+from snail.bvh import build_bvh
+from snail.core.types import Camera, Light
+from snail.core.vecmath import BIG
+from snail.scene.instancing import (
     instanced_closest_hit,
     make_instances,
     render_instanced,
     rotation_y,
 )
-from snail_tpu.scene.scene import load_scene
+from snail.scene.scene import load_scene
 
 
 @pytest.fixture(scope="module")
-def box_traced():
+def box_traced(box_path):
     return load_scene(
-        "/root/reference/scenes/box.obj", cache_dir=None,
+        box_path, cache_dir=None,
         lights=Light.make((0, 8, 0), (1, 1, 1), 40.0),
         backend="reference",
     )
@@ -100,15 +100,15 @@ def test_render_instanced_smoke(box_traced):
 
 
 def test_instanced_full_whitted_matches_flat_render():
-    """Identity-instanced render through the FULL packed shading path
-    (specular + reflections) must reproduce the single-BVH render — the
+    """Identity-instanced render through the full shading path (specular
+    + reflections) must reproduce the single-BVH render — the
     reference feeds DBVH scenes into the same Scene::RayTrace
     (dbvh/traverse.cpp:14-76, scene_inl.h:169-496)."""
-    from snail_tpu.core.types import RenderOpts
-    from snail_tpu.render.renderer import render_frame
-    from snail_tpu.scene.materials import MaterialDesc, MaterialTable
-    from snail_tpu.scene.procedural import cornell_scene
-    from snail_tpu.scene.scene import make_traced_scene
+    from snail.core.types import RenderOpts
+    from snail.render.renderer import render_frame
+    from snail.scene.materials import MaterialDesc, MaterialTable
+    from snail.scene.procedural import cornell_scene
+    from snail.scene.scene import make_traced_scene
 
     base = cornell_scene()
     for i in (1, 2):  # inner boxes get the shiny material
@@ -148,9 +148,9 @@ def test_instance_culling_sublinear(box_traced, monkeypatch):
     import jax.numpy as jnp
     import numpy as np
 
-    from snail_tpu.ops import dispatch
-    from snail_tpu.scene.instancing import (instanced_closest_hit,
-                                            make_instances)
+    from snail.ops import dispatch
+    from snail.scene.instancing import (instanced_closest_hit,
+                                        make_instances)
 
     base = box_traced
     n = 64
@@ -190,7 +190,7 @@ def test_instance_culling_sublinear(box_traced, monkeypatch):
     assert (np.asarray(inst)[hit] == 0).all()
     # tracing happened for every instance at TRACE time (python loop),
     # but the runtime skip is lax.cond — assert the cull MASK instead:
-    from snail_tpu.scene.instancing import _ray_hits_box
+    from snail.scene.instancing import _ray_hits_box
     touched = [bool(np.asarray(_ray_hits_box(
         o3, d3, tm, iscene.inst_lo[i], iscene.inst_hi[i])).any())
         for i in range(n)]

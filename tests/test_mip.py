@@ -11,12 +11,12 @@ def _textured_floor_scene():
     uv footprints."""
     import jax.numpy as jnp
 
-    from snail_tpu.bvh import build_bvh
-    from snail_tpu.core.types import Light
-    from snail_tpu.scene.base_scene import BaseScene, SceneObject
-    from snail_tpu.scene.materials import MaterialTable
-    from snail_tpu.scene.scene import make_traced_scene
-    from snail_tpu.scene.textures import build_pyramid_atlas
+    from snail.bvh import build_bvh
+    from snail.core.types import Light
+    from snail.scene.base_scene import BaseScene, SceneObject
+    from snail.scene.materials import MaterialTable
+    from snail.scene.scene import make_traced_scene
+    from snail.scene.textures import build_pyramid_atlas
 
     s = 200.0
     verts = np.array(
@@ -60,7 +60,7 @@ def test_footprint_oracle():
     """uv_footprint matches a numpy forward-difference oracle."""
     import jax.numpy as jnp
 
-    from snail_tpu.scene.textures import uv_footprint
+    from snail.scene.textures import uv_footprint
 
     rng = np.random.default_rng(7)
     th = tw = 8
@@ -90,8 +90,8 @@ def test_grazing_plane_selects_higher_mips():
     mips match mip_from_footprint applied to the rendered footprints."""
     import jax.numpy as jnp
 
-    from snail_tpu.core.types import Camera, RenderOpts
-    from snail_tpu.render.renderer import render_frame
+    from snail.core.types import Camera, RenderOpts
+    from snail.render.renderer import render_frame
 
     scene = _textured_floor_scene()
     cam = Camera.look_at(pos=(0.0, 2.0, 0.0), target=(0.0, 0.0, -60.0))

@@ -8,7 +8,7 @@ import threading
 import numpy as np
 import pytest
 
-from snail_tpu.net import codec, protocol
+from snail.net import codec, protocol
 
 
 def test_rgb_delta_roundtrip(rng):
@@ -69,22 +69,21 @@ def test_parts_stream_roundtrip(rng):
         np.testing.assert_array_equal(img[y:y + 64, x:x + 64], t)
 
 
-def test_loopback_render_service():
+def test_loopback_render_service(scene_dir, box_path):
     """Full client/server session over a socketpair: LoadNewModel
     handshake, two frames, stats trailer — then compare the streamed
     frame against a direct local render (the compare_img pattern)."""
-    from snail_tpu.apps.server import serve_connection
-    from snail_tpu.core.types import Camera, Light, RenderOpts
-    from snail_tpu.render.renderer import render_frame, to_rgb8
-    from snail_tpu.scene.scene import load_scene
+    from snail.apps.server import serve_connection
+    from snail.core.types import Camera, Light, RenderOpts
+    from snail.render.renderer import render_frame, to_rgb8
+    from snail.scene.scene import load_scene
 
     srv_sock, cli_sock = socket.socketpair()
     err = []
 
     def server():
         try:
-            serve_connection(srv_sock, "/root/reference/scenes",
-                             cache_dir=None)
+            serve_connection(srv_sock, str(scene_dir), cache_dir=None)
         except Exception as e:  # surface server-side failures
             err.append(e)
         finally:
@@ -117,7 +116,7 @@ def test_loopback_render_service():
     assert not err, err
 
     scene = load_scene(
-        "/root/reference/scenes/box.obj", cache_dir=None,
+        box_path, cache_dir=None,
         lights=Light.make((0.0, 8.0, 0.0), (1, 1, 1), 40.0),
     )
     cam = Camera.look_at(pos=(3.0, 2.5, 4.0), target=(0.0, 0.0, 0.0))
@@ -129,25 +128,18 @@ def test_loopback_render_service():
     assert np.mean(np.abs(img.astype(int) - ref.astype(int))) < 1.0
 
 
-def test_loopback_measured_stats():
-    """gVals[2] (stats toggle) must return MEASURED in-kernel counters
-    from the server, matching a direct run of the instrumented kernels
-    (VERDICT r2 item 5: no fabricated TreeStats on the wire)."""
-    import threading
-
-    from snail_tpu.apps.server import serve_connection
-    from snail_tpu.core.types import Camera, Light, RenderOpts
-    from snail_tpu.ops.traverse_pallas import QR, RAY_LANE
-    from snail_tpu.render.fast import render_frame_fast_stats
-    from snail_tpu.scene.scene import load_scene
+def test_loopback_measured_stats(scene_dir):
+    """gVals[2] (stats toggle): the traversal keeps no work counters, so
+    the server must say so (measured: false) and report only the ray
+    count it knows — no fabricated TreeStats on the wire."""
+    from snail.apps.server import serve_connection
 
     srv_sock, cli_sock = socket.socketpair()
     err = []
 
     def server():
         try:
-            serve_connection(srv_sock, "/root/reference/scenes",
-                             cache_dir=None)
+            serve_connection(srv_sock, str(scene_dir), cache_dir=None)
         except Exception as e:
             err.append(e)
         finally:
@@ -176,17 +168,6 @@ def test_loopback_measured_stats():
     cli_sock.close()
     assert not err, err
 
-    assert stats["measured"] is True
-    assert stats["loop_iters"] > 0 and stats["intersects"] > 0
-
-    # must equal a direct run of the same instrumented kernels
-    scene = load_scene(
-        "/root/reference/scenes/box.obj", cache_dir=None,
-        lights=Light.make((0.0, 8.0, 0.0), (1, 1, 1), 40.0),
-    )
-    cam = Camera.look_at(pos=(3.0, 2.5, 4.0), target=(0.0, 0.0, 0.0))
-    opts = RenderOpts(stats=True, reflections=False, transparency=False,
-                      textures=False)
-    _, k = render_frame_fast_stats(scene, cam, 64, 64, opts)
-    assert stats["loop_iters"] == k["nodes"]
-    assert stats["intersects"] == k["tri_blocks"] * QR * RAY_LANE
+    assert stats["measured"] is False
+    assert stats["rays"] == 64 * 64 * 2  # primary + one shadow per pixel
+    assert stats["loop_iters"] == 0 and stats["intersects"] == 0

@@ -6,8 +6,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from snail_tpu.core.types import Camera, Light
-from snail_tpu.render.photons import (
+from snail.core.types import Camera, Light
+from snail.render.photons import (
     build_photon_kdtree,
     gather_photons_grid,
     gather_photons_kd,
@@ -15,13 +15,13 @@ from snail_tpu.render.photons import (
     render_photon_preview,
     trace_photons,
 )
-from snail_tpu.scene.scene import load_scene
+from snail.scene.scene import load_scene
 
 
 @pytest.fixture(scope="module")
-def box_scene():
+def box_scene(box_path):
     return load_scene(
-        "/root/reference/scenes/box.obj", cache_dir=None,
+        box_path, cache_dir=None,
         lights=Light.make((0.0, 0.5, 0.0), (1.0, 1.0, 1.0), 40.0),  # inside the box
         backend="reference",
     )

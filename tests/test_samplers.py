@@ -4,7 +4,7 @@ sampling/sampler.cpp:9-44 -> RenderOpts.tex_filter)."""
 import numpy as np
 import jax.numpy as jnp
 
-from snail_tpu.scene.textures import (
+from snail.scene.textures import (
     build_pyramid_atlas, build_sat_atlas, sample_atlas, sample_sat_atlas,
 )
 
@@ -53,9 +53,9 @@ def test_sat_full_rect_is_texture_mean():
 def test_render_paths_accept_all_filters():
     """End-to-end: the textured render runs under every tex_filter and
     the filters actually differ (the mip/test_mip scene)."""
-    from snail_tpu.core.types import Camera, RenderOpts
-    from snail_tpu.render.renderer import render_frame
-    from snail_tpu.scene.scene import with_sat
+    from snail.core.types import Camera, RenderOpts
+    from snail.render.renderer import render_frame
+    from snail.scene.scene import with_sat
     from test_mip import _textured_floor_scene
 
     scene = with_sat(_textured_floor_scene())

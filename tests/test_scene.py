@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from snail_tpu.scene import load_wavefront_obj, load_material_descs, MaterialTable
+from snail.scene import load_wavefront_obj, load_material_descs, MaterialTable
 
 
 def test_box_counts(box_scene):
@@ -39,16 +39,16 @@ def test_box_normals_from_file(box_scene):
     np.testing.assert_allclose(dots, 1.0, atol=1e-5)
 
 
-def test_feline_loads():
-    scene = load_wavefront_obj("/root/reference/scenes/feline.obj")
+def test_feline_loads(scene_dir):
+    scene = load_wavefront_obj(str(scene_dir / "terrain.obj"))
     assert scene.num_tris > 10000
     g = scene.flatten()
     assert np.isfinite(g.a).all()
     assert (g.t0 > 0).all()  # repair dropped degenerates
 
 
-def test_gen_normals():
-    scene = load_wavefront_obj("/root/reference/scenes/feline.obj")
+def test_gen_normals(scene_dir):
+    scene = load_wavefront_obj(str(scene_dir / "terrain.obj"))
     obj = scene.objects[0]
     had_missing = (obj.tri_vn < 0).any()
     scene.gen_normals()
@@ -56,10 +56,8 @@ def test_gen_normals():
         assert (obj.tri_vn >= 0).all()
 
 
-def test_flip_normals(box_scene):
-    import copy
-
-    scene = load_wavefront_obj("/root/reference/scenes/box.obj")
+def test_flip_normals(box_path):
+    scene = load_wavefront_obj(box_path)
     g0 = scene.flatten()
     scene.flip_normals()
     g1 = scene.flatten()
@@ -82,8 +80,8 @@ def test_negative_indices(tmp_path):
     np.testing.assert_array_equal(scene.objects[0].tri_v, [[0, 1, 2]])
 
 
-def test_mtl_parse():
-    descs = load_material_descs("/root/reference/scenes/sponza.mtl")
+def test_mtl_parse(scene_dir):
+    descs = load_material_descs(str(scene_dir / "test.mtl"))
     assert len(descs) > 0
     names = {d.name for d in descs}
     assert len(names) == len(descs)
@@ -92,8 +90,8 @@ def test_mtl_parse():
         assert len(d.diffuse) == 3
 
 
-def test_material_table():
-    descs = load_material_descs("/root/reference/scenes/sponza.mtl")
+def test_material_table(scene_dir):
+    descs = load_material_descs(str(scene_dir / "test.mtl"))
     mat_names = {"": 0}
     for d in descs:
         mat_names[d.name] = len(mat_names)
@@ -103,3 +101,23 @@ def test_material_table():
     np.testing.assert_allclose(tbl.diffuse[0], 1.0)
     assert tbl.diffuse_tex[0] == -1
     assert tbl.dissolve[0] == 1.0
+
+
+@pytest.mark.parametrize("which", ["box", "terrain"])
+def test_obj_writer_roundtrip(tmp_path, which):
+    """procedural.write_obj output loads back to the same geometry,
+    normals, materials and mtllib (the fixtures rely on it)."""
+    from snail.scene.procedural import (box_obj_scene, terrain_scene,
+                                        write_obj)
+
+    scene = box_obj_scene() if which == "box" else terrain_scene(12, seed=3)
+    path = str(tmp_path / "s.obj")
+    write_obj(path, scene)
+    back = load_wavefront_obj(path)
+    assert back.mat_names == scene.mat_names
+    assert back.mtl_libs == scene.mtl_libs
+    a, b = scene.flatten(), back.flatten()
+    for f in ("a", "ba", "ca", "n0", "n_e1", "n_e2", "uv0"):
+        np.testing.assert_allclose(getattr(b, f), getattr(a, f), atol=1e-6,
+                                   err_msg=f)
+    np.testing.assert_array_equal(b.mat_id, a.mat_id)

@@ -4,9 +4,9 @@ src/dicom_viewer.cpp): min/max pyramid, iso/MIP marching, DICOM IO."""
 import numpy as np
 import pytest
 
-from snail_tpu.core.types import Camera
-from snail_tpu.volume import build_vtree, load_dicom_dir, render_volume
-from snail_tpu.volume.data import (
+from snail.core.types import Camera
+from snail.volume import build_vtree, load_dicom_dir, render_volume
+from snail.volume.data import (
     synthetic_sphere,
     write_dicom_file,
     load_dicom_file,

@@ -1,54 +1,83 @@
-"""Kernel-level breakdown of the bench frame via the JAX profiler."""
+"""Per-operation device time of the benchmark frame, from a JAX profiler
+trace on the GPU.
+
+    python tools/profile_trace.py [out_dir]    # default build/trace
+
+Renders the smoke scene (scene/procedural.py) at 1024x1024 with shadows
+and reflections, traces 4 frames after a warm-up, and prints the device
+time of each operation per frame, largest first, with the device's busy
+share of the traced window.
+"""
+
 import glob
 import gzip
 import json
-import time
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
 
 
 def main():
     import jax
-    import numpy as np
 
-    from snail_tpu.core.types import Camera, Light, RenderOpts
-    from snail_tpu.render.renderer import render_frame
-    from snail_tpu.scene.scene import load_scene
+    from snail.core.types import RenderOpts
+    from snail.render.renderer import render_frame
+    from snail.scene.procedural import smoke_scene
+    from snail.utils.device import (gpu_name_and_power, require_gpu,
+                                    setup_compile_cache)
 
-    W = H = 1024
-    lights = Light.make((5.0, 15.0, 5.0), (1.0, 1.0, 1.0), 60.0)
-    scene = load_scene("/root/reference/scenes/feline.obj",
-                       cache_dir="/tmp/snail_dump", lights=lights)
-    lo, hi = np.asarray(scene.node_lo[0]), np.asarray(scene.node_hi[0])
-    center = (lo + hi) * 0.5
-    ext = float(np.max(hi - lo))
-    cam = Camera.look_at(pos=tuple(center + np.array([0.45, 0.35, 0.9]) * ext),
-                         target=tuple(center))
-    opts = RenderOpts(reflections=False, transparency=False, textures=False)
+    out = sys.argv[1] if len(sys.argv) > 1 else os.path.join(
+        "build", "trace")
+    setup_compile_cache()
+    require_gpu()
+    print("#", gpu_name_and_power())
+    frames, w, h = 4, 1024, 1024
+    scene, cam = smoke_scene()
+    opts = RenderOpts(shadows=True, reflections=True, transparency=False,
+                      textures=False)
+    render_frame(scene, cam, w, h, opts).block_until_ready()
 
-    img = render_frame(scene, cam, W, H, opts)
-    img.block_until_ready()
-
-    with jax.profiler.trace("/tmp/snail_trace"):
-        for _ in range(4):
-            img = render_frame(scene, cam, W, H, opts)
+    with jax.profiler.trace(out, create_perfetto_trace=True):
+        for _ in range(frames):
+            img = render_frame(scene, cam, w, h, opts)
         img.block_until_ready()
 
-    # parse the trace: sum durations by op name on the device track
-    paths = glob.glob("/tmp/snail_trace/**/*.trace.json.gz", recursive=True)
-    paths.sort(key=lambda p: -len(p))
-    with gzip.open(paths[0], "rt") as f:
+    path = max(glob.glob(os.path.join(out, "**", "*.trace.json.gz"),
+                         recursive=True), key=os.path.getmtime)
+    with gzip.open(path, "rt") as f:
         tr = json.load(f)
-    durs = {}
+    # device tracks are the processes whose name mentions the GPU
+    pids = {ev["pid"] for ev in tr.get("traceEvents", [])
+            if ev.get("ph") == "M" and ev.get("name") == "process_name"
+            and "/device:GPU" in ev.get("args", {}).get("name", "")}
+    durs, spans = {}, []
     for ev in tr.get("traceEvents", []):
-        if ev.get("ph") != "X" or "dur" not in ev:
+        if ev.get("ph") != "X" or ev.get("pid") not in pids:
             continue
-        pid = ev.get("pid", 0)
         name = ev.get("name", "?")
-        durs.setdefault((pid, name), [0.0, 0])
-        durs[(pid, name)][0] += ev["dur"] / 1e3  # ms
-        durs[(pid, name)][1] += 1
-    items = sorted(durs.items(), key=lambda kv: -kv[1][0])
-    for (pid, name), (ms, n) in items[:40]:
-        print(f"{ms/4:9.3f} ms/frame x{n//4:4d}  pid={pid} {name[:110]}")
+        durs.setdefault(name, [0.0, 0])
+        durs[name][0] += ev["dur"] / 1e3
+        durs[name][1] += 1
+        spans.append((ev["ts"], ev["ts"] + ev["dur"]))
+    spans.sort()
+    busy, end = 0.0, None
+    for s, e in spans:
+        if end is None or s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    window = (spans[-1][1] - spans[0][0]) if spans else 0.0
+    print(f"device busy {busy / 1e3 / frames:.3f} ms/frame of a "
+          f"{window / 1e3 / frames:.3f} ms/frame window "
+          f"({busy / max(window, 1e-9):.3f} busy)")
+    total = sum(v[0] for v in durs.values())
+    for name, (ms, n) in sorted(durs.items(), key=lambda kv: -kv[1][0])[:30]:
+        print(f"{ms / frames:9.4f} ms/frame {ms / total:6.1%} "
+              f"x{n // frames:4d}  {name[:100]}")
 
 
 if __name__ == "__main__":
